@@ -155,7 +155,7 @@ def bench_cold_auto(tmp, bed, vcf_path, pairs_path, map_path, n_pairs):
                sub_pairs, map_path,
                os.path.join(tmp, "cold_%d_%s.txt" % (n_pairs, engine)),
                BS, engine))
-        env = dict(os.environ, PHASER_TPU_JIT_CACHE=cold_dir)
+        env = dict(os.environ, JAX_COMPILATION_CACHE_DIR=cold_dir)
         proc = subprocess.run([_sys.executable, "-c", script], env=env,
                               capture_output=True, text=True, timeout=3600)
         if proc.returncode != 0:

@@ -11,10 +11,10 @@
 # On one machine (collectives over loopback Gloo):
 #   bash examples/multihost_example.sh sample.vcf.gz sample.bam SAMPLE1 out 2
 #
-# On a real multi-host TPU slice: launch the same command once per host with
-# --platform '' (keep the TPU runtime), --device auto (per-process chip via
-# mapper.dispatch), process-id = the host index, and a coordinator address
-# reachable from every host.
+# On several hosts: launch the same command once per host with
+# --platform '' (keep JAX's default platform), --device auto (per-process
+# accelerator via mapper.dispatch), process-id = the host index, and a
+# coordinator address reachable from every host.
 #
 # FAILURE RECOVERY: every shard journals its collective payloads to
 # <out>.shardK.ckpt the moment its engine run completes. If the job dies

@@ -62,10 +62,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "exist; with --threads N (multiprocess), replay "
                         "completed shards' journals and recompute only "
                         "lost shards (phaser_tpu extension).")
-    p.add_argument("--device", default="auto",
-                   help="Compute device for hot kernels: auto|tpu|cpu|host "
-                        "(phaser_tpu extension).")
+    p.add_argument("--device", default="auto", choices=("auto", "gpu", "host"),
+                   help="Compute device for hot kernels: auto = JAX's default "
+                        "backend, gpu = the GPU or fail, host = numpy/C++ "
+                        "only (phaser_tpu extension).")
     return p
+
+
+def _require_gpu() -> None:
+    """--device gpu: the device kernels must run on a GPU, never elsewhere."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise RuntimeError("--device gpu: JAX found no GPU (default device "
+                           "is %s, platform %r)" % (dev, dev.platform))
 
 
 def main(argv=None) -> int:
@@ -74,7 +84,7 @@ def main(argv=None) -> int:
     print("##################################################")
     print("       phaser_tpu v%s (phASER v%s compatible)"
           % (__version__, PHASER_COMPAT_VERSION))
-    print("   TPU-native read-backed phasing + ASE engine")
+    print("   read-backed phasing + ASE engine (JAX, GPU)")
     print("##################################################")
     print("")
     start = time.time()
@@ -95,7 +105,7 @@ def main(argv=None) -> int:
         gw_phase_vcf_min_confidence=args.gw_phase_vcf_min_confidence,
         gw_af_field=args.gw_af_field, chr_prefix=args.chr_prefix,
         show_warning=args.show_warning)
-    device = "host" if args.device in ("host", "cpu") else "auto"
+    device = "host" if args.device == "host" else "auto"
     kwargs = dict(
         vcf=args.vcf, bam=args.bam, sample=args.sample, o=args.o,
         mapq=args.mapq, baseq=args.baseq, paired_end=args.paired_end,
@@ -137,7 +147,9 @@ def main(argv=None) -> int:
                                  threads=max(1, args.threads),
                                  device=device)
     try:
-        res = _run(**kwargs)
+        if args.device == "gpu":
+            _require_gpu()
+        _run(**kwargs)
     except (ValueError, RuntimeError, FileNotFoundError) as e:
         from ..utils.failures import write_failure_record
         record = write_failure_record(args.o, "phaser", e, argv)

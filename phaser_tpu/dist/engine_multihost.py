@@ -27,7 +27,7 @@ Two transports share the same reducer logic:
                      driver's virtual-mesh dryrun, single-host many-core)
   MultihostReducer - one shard per jax process over
                      jax.experimental.multihost_utils allgathers (Gloo on
-                     CPU, ICI/DCN on a real TPU slice)
+                     CPU)
 
 The merge step reads every shard's files, so multi-host runs need a shared
 filesystem (or post-run collection) — the same operational model as the
@@ -337,8 +337,8 @@ class MultihostReducer(_ReducerBase):
     """Cross-process allgather over jax.experimental.multihost_utils.
 
     Payloads are pickled to uint8 tensors (lengths allgathered first, then
-    the padded bytes) — the collective rides Gloo on CPU meshes and
-    ICI/DCN on a real slice; payload sizes are a few MB at most (score
+    the padded bytes) — the collective rides Gloo on CPU meshes; payload
+    sizes are a few MB at most (score
     lists), far below link limits.
     """
 
@@ -595,8 +595,9 @@ def run_phaser_multihost(*, vcf: str, bam: str, sample: str, o: str,
                          **kw) -> PhaserResult:
     """One engine shard per jax process; rank 0 merges after a barrier.
 
-    platform='cpu' runs the collectives over Gloo; on a real slice pass
-    platform='' (leave the TPU runtime) and launch one process per host.
+    platform='cpu' runs the collectives over Gloo (the default, and what the
+    --threads N --device host CLI path uses); platform='' leaves JAX's
+    default platform in place, for one process per host.
     position_shards=True computes the SAME weight-balanced
     (contig, position-range) plan on every process from the BAM index.
     resume=True: a rank whose previous run completed (journal + outputs on

@@ -78,6 +78,7 @@ def _run_n(vcf: str, bam: str, prefix: str, n: int, pin: bool):
                 "--bam", bam, "--vcf", vcf, "--sample", "SAMPLE1",
                 "--o", prefix, "--num-processes", str(n),
                 "--process-id", str(pid), "--position-shards",
+                "--platform", "cpu",  # one process per shard: never a GPU
                 "--coordinator", "localhost:%d" % port]
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
         procs.append(subprocess.Popen(cmd, cwd=_REPO, env=env,

@@ -4,8 +4,8 @@ The reference's parallelism is a fork pool over contigs with parent-side
 merges (/root/reference/phaser/phaser.py:2077-2094, 558-586).  Here the
 data-parallel axis is genomic: read batches shard along axis "reads" of a
 device mesh; per-shard count tensors merge with psum — the collective runs
-over ICI on a real slice, and the same program runs on the
-xla_force_host_platform_device_count virtual mesh in tests/dry runs.
+over NVLink (NCCL) across the GPUs of one host, and the same program runs on
+the xla_force_host_platform_device_count virtual mesh in tests/dry runs.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def sharded_phasing_step(mesh: Mesh, codes, quals, refpos, vpos, ind_codes,
       the reference's pool merges) -> psum -> ON-DEVICE #3: global noise
       estimate from the merged counts + banded connection tests + pruning
       (kernels.stats — counts never leave HBM) -> batched 2^(K-1)
-      phase-config scoring on the MXU for the first `score_block`-variant
+      phase-config scoring as one matmul for the first `score_block`-variant
       window.
 
     Returns (allele_counts (M,3), pair_band (M,band,9),

@@ -1,8 +1,8 @@
 """Multi-host execution scaffolding.
 
 The reference is strictly single-node (fork pool + temp files, SURVEY §2.4).
-The phaser_tpu equivalent per that survey: a JAX global runtime over ICI
-within a slice and DCN across hosts —
+The phaser_tpu equivalent per that survey: a JAX global runtime with
+collectives within a host and across hosts —
 
   1. `initialize()` -> jax.distributed.initialize (env- or flag-driven)
   2. each host decodes its own BAM shard (reads partitioned by position
@@ -11,10 +11,10 @@ within a slice and DCN across hosts —
   3. `global_read_tensors()` assembles process-local (N, L) tensors into
      globally-sharded arrays via jax.make_array_from_process_local_data
   4. the same `sharded_phasing_step` program runs over the global mesh;
-     count-tensor psums ride ICI/DCN
+     count-tensor psums ride the collective backend (Gloo on CPU)
 
 Single-chip environments exercise everything below through the virtual CPU
-mesh (tests + the driver's dryrun); a real pod slice only changes
+mesh (tests + the virtual-mesh dryrun); several real hosts only change
 `initialize()` arguments.
 """
 
@@ -107,8 +107,7 @@ def multiprocess_allele_counts(bam: str, vcf: str, sample: str,
                                contig: str = "") -> np.ndarray:
     """True multi-process hot path: every process owns one position shard
     of the reads, packs its local tensors, and the per-(variant, allele)
-    count tensor merges with a cross-process psum (Gloo on CPU, ICI/DCN on
-    a real slice). Returns the fully-replicated (n_vars, 3) counts.
+    count tensor merges with a cross-process psum (Gloo on CPU). Returns the fully-replicated (n_vars, 3) counts.
 
     Demonstrates the SURVEY §2.4 mapping end-to-end: genomic shards as the
     mesh axis, jax.make_array_from_process_local_data for per-host ingest,

@@ -72,12 +72,8 @@ def _host_blocks(adj: Dict[int, Set[int]]) -> List[List[int]]:
 
 
 def _device_blocks(adj: Dict[int, Set[int]]) -> List[List[int]]:
-    """Flatten the adjacency to an edge list and run the device kernel.
-    Returns [] when the device path is unavailable (caller falls back)."""
-    try:
-        from ..kernels.components import connected_components
-    except Exception:
-        return []
+    """Flatten the adjacency to an edge list and run the device kernel."""
+    from ..kernels.components import connected_components
     ea = []
     eb = []
     for a, nbrs in adj.items():

@@ -1,7 +1,7 @@
 """Block phasing: exact replication of phase_v3 and helpers
 (/root/reference/phaser/phaser.py:2107-2324), with the 2^n configuration
 scoring vectorized as a matmul (host numpy here; the identical score kernel
-runs batched on the MXU via kernels.phasescore).
+runs batched on the device via kernels.phasescore).
 
 Configs are strings of '0'/'1'/'-' as in the reference, including:
   - complement-class deduplication in itertools.product order
@@ -107,13 +107,10 @@ def _vmv_scores(V: np.ndarray, M: np.ndarray) -> np.ndarray:
 
 
 def _device_full_enumeration(variants: Sequence[int], ac: AlleleConn,
-                             n: int) -> Optional[List[str]]:
+                             n: int) -> List[str]:
     """Full 2^(n-1) enumeration scored on device; same result contract as
     the host path (unique best -> [config, inverse], tie -> sentinel)."""
-    try:
-        from ..kernels.phasescore import enumerate_scores
-    except Exception:
-        return None
+    from ..kernels.phasescore import enumerate_scores
     local = {v: i for i, v in enumerate(variants)}
     M = np.zeros((2 * n, 2 * n), np.float32)
     for i, v in enumerate(variants):
@@ -151,13 +148,11 @@ def sub_block_phase(variants: Sequence[int], ac: AlleleConn,
         n = len(variants)
         if n >= 16:
             # batched device scoring (kernels.phasescore): same enumeration
-            # order, exact integer scores on the MXU. Host einsum covers the
-            # default --max_block_size 15 in milliseconds; the device pays
-            # off only for raised block caps (2^n config explosion), and
-            # avoiding the launch matters on high-latency device links.
-            result = _device_full_enumeration(variants, ac, n)
-            if result is not None:
-                return result
+            # order, exact integer scores. Host einsum covers the default
+            # --max_block_size 15 in milliseconds; the device pays off only
+            # for raised block caps (2^n config explosion). The 16-variant
+            # gate is to be re-derived on the H100 (ROADMAP S5).
+            return _device_full_enumeration(variants, ac, n)
         # itertools.product("01", repeat=n) order, one per complement
         # class: exactly the configs starting with '0'.  All of them start
         # with '0' and their inverses with '1', so the complement-class

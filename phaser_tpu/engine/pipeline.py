@@ -110,8 +110,8 @@ def _run_phaser_inner(*, vcf: str, bam: str, sample: str, o: str, mapq: str,
     res = PhaserResult()
     tracer = Tracer()
 
-    # tune the allocator + pre-fault the working set (lazily-backed VMs
-    # serve first-touch faults remotely; see utils/memtune)
+    # tune the allocator + pre-fault the working set, so the mapper's large
+    # temporaries land on resident pages (utils/memtune)
     if device not in ("host", "off"):
         from ..utils.jaxtune import enable_compile_cache
         enable_compile_cache()

@@ -1,7 +1,8 @@
 """Build-on-demand loader for the native IO library (g++ -O3, zlib, pthreads).
 
-Falls back to pure Python when compilation is unavailable
-(PHASER_TPU_NO_NATIVE=1 disables explicitly).
+Falls back to pure Python when compilation is unavailable, and says so on
+stderr (PHASER_TPU_NO_NATIVE=1 disables the library explicitly).  Callers
+that must not run on the Python codecs assert `get_lib() is not None`.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sys
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -35,9 +37,14 @@ def _build() -> bool:
             cmd.insert(1, "-DPHASER_NO_LIBDEFLATE")
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=120)
-        return res.returncode == 0
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
+        print("phaser_io: native build failed (%s); using the Python codecs"
+              % e, file=sys.stderr)
         return False
+    if res.returncode != 0:
+        print("phaser_io: native build failed; using the Python codecs\n%s"
+              % res.stderr[-2000:], file=sys.stderr)
+    return res.returncode == 0
 
 
 def get_lib():

@@ -1,4 +1,4 @@
-"""Batched 2^K haplotype-configuration scoring on the MXU.
+"""Batched 2^K haplotype-configuration scoring as one device matmul.
 
 score(config) = v^T M v over the 2n x 2n allele adjacency (the directed
 supporting-connection count of sub_block_phase,
@@ -36,7 +36,11 @@ def enumerate_scores(M: jax.Array, n: int) -> jax.Array:
     idx = pos[None, :] + bits
     V = jnp.zeros((S, 2 * n), jnp.float32)
     V = jax.vmap(lambda row, i: row.at[i].set(1.0))(V, idx)
-    E = V @ M                      # MXU
+    # HIGHEST: a float32 matmul may otherwise run in TF32 (10-bit
+    # mantissa). The operands here are 0/1 and every sum is at most 2n, so
+    # TF32 would happen to be exact too; the pinned precision keeps the
+    # scores exact by contract, not by the operands' range.
+    E = jnp.matmul(V, M, precision=jax.lax.Precision.HIGHEST)
     return jnp.sum(E * V, axis=1)
 
 

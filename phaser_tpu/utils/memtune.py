@@ -1,17 +1,17 @@
-"""Host memory tuning for lazily-backed VMs.
+"""Host memory tuning: keep the engine's large temporaries on resident pages.
 
-Some sandboxed TPU VMs serve first-touch page faults of private anonymous
-memory remotely (~0.5 ms/page — 3 orders of magnitude over local zero-fill),
-and glibc returns large freed blocks to the OS, so every big numpy temporary
-pays the full fault cost again.  `setup()`:
+glibc returns large freed blocks to the OS, so every big numpy temporary
+pays first-touch page faults again; on hosts whose page faults are slow
+(lazily-backed VMs) that cost dominates large-array work.  `setup()`:
 
   1. mallopt(M_TRIM_THRESHOLD, max) + mallopt(M_MMAP_MAX, 0): big allocations
      come from the brk heap and freed pages stay in the arena for reuse
   2. optionally pre-faults a working-set-sized arena with parallel C threads
      (faults pipeline across threads) and frees it back into the arena
 
-After setup, steady-state large-array numpy work runs at normal speed.
-No-ops cleanly on normal machines.
+After setup, steady-state large-array numpy work touches resident pages.
+Whether the prefault pays on a given host is an open measurement (ROADMAP
+D3); it is harmless where faults are cheap.
 """
 
 from __future__ import annotations
@@ -40,12 +40,11 @@ def bgzf_uncompressed_size(path: str) -> int:
 
 
 _prefaulted_mb = 0
-_prefault_lock = None
 
 
 def setup(prefault_mb: int = 0, n_threads: int = 0,
           background: bool = False) -> None:
-    global _done, _prefaulted_mb, _prefault_lock
+    global _done, _prefaulted_mb
     try:
         libc = ctypes.CDLL("libc.so.6", use_errno=True)
         if not _done:

@@ -57,7 +57,7 @@ def iter_prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
             _put_stoppable(_Failure(exc))
 
     t = threading.Thread(target=_produce, daemon=True,
-                         name="phaser-tpu-prefetch")
+                         name="phaser-prefetch")
     t.start()
     try:
         while True:

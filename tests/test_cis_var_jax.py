@@ -42,11 +42,11 @@ def test_cis_var_jax_engine(tmp_path):
 def test_pop_warm_marker(tmp_path, monkeypatch):
     """The auto-engine gate consults a warm marker next to the persistent
     jit cache: cold caches use the ~64M pairs*bs crossover (a cold
-    compile made P=2000 a 3x loss in BENCH_pop_r03), warm ones ~8M."""
-    monkeypatch.setenv("PHASER_TPU_JIT_CACHE", str(tmp_path))
+    compile makes small workloads a loss), warm ones ~8M."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
     from phaser_tpu.analysis import cis_var
-    assert not cis_var._pop_is_warm("tpu", 10000)
-    cis_var._pop_mark_warm("tpu", 10000)
-    assert cis_var._pop_is_warm("tpu", 10000)
-    assert not cis_var._pop_is_warm("tpu", 500)
+    assert not cis_var._pop_is_warm("gpu", 10000)
+    cis_var._pop_mark_warm("gpu", 10000)
+    assert cis_var._pop_is_warm("gpu", 10000)
+    assert not cis_var._pop_is_warm("gpu", 500)
     assert not cis_var._pop_is_warm("cpu", 10000)

@@ -25,23 +25,17 @@ def _fixture(tmp_path, seed=0, **kw):
     return bd.select(keep), vt
 
 
-def _device_hits(chunk, vt, baseq=10, use_pallas=False):
+def _device_hits(chunk, vt, baseq=10):
     import jax.numpy as jnp
     from phaser_tpu.kernels.alleles import (assign_alleles_device,
-                                            assign_alleles_pallas,
                                             compact_hits, pack_reads)
     codes, quals, refpos = pack_reads(chunk)
     vpos = jnp.asarray(vt.pos.astype(np.int32))
     ind = jnp.asarray(vt.ind_codes)
     ni = jnp.asarray(vt.n_ind)
-    if use_pallas:
-        vidx, allele = assign_alleles_pallas(
-            jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-            vpos, jnp.asarray(vt.ind_codes), jnp.asarray(vt.n_ind), baseq)
-    else:
-        vidx, allele = assign_alleles_device(
-            jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-            vpos, ind, ni, baseq)
+    vidx, allele = assign_alleles_device(
+        jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
+        vpos, ind, ni, baseq)
     cap = int(codes.size)
     r, v, a, n = compact_hits(jnp.asarray(vidx), jnp.asarray(allele), cap)
     n = int(n)
@@ -61,17 +55,6 @@ def test_device_allele_assignment_matches_host(tmp_path):
     hr, hv, ha = _host_hits(chunk, vt)
     dr, dv, da = _device_hits(chunk, vt)
     assert len(hr) > 50
-    np.testing.assert_array_equal(dr, hr)
-    np.testing.assert_array_equal(dv, hv)
-    np.testing.assert_array_equal(da, ha)
-
-
-def test_pallas_interpret_matches_host(tmp_path):
-    from jax.experimental.pallas import tpu as pltpu
-    chunk, vt = _fixture(tmp_path, seed=3, n_reads_per_contig=100)
-    hr, hv, ha = _host_hits(chunk, vt)
-    with pltpu.force_tpu_interpret_mode():
-        dr, dv, da = _device_hits(chunk, vt, use_pallas=True)
     np.testing.assert_array_equal(dr, hr)
     np.testing.assert_array_equal(dv, hv)
     np.testing.assert_array_equal(da, ha)
@@ -499,211 +482,22 @@ def test_nibble_kernel_matches_masked_kernel(tmp_path):
     np.testing.assert_array_equal(mn, mm)
 
 
-def test_pallas_windowed_interpret_matches_device():
-    """Windowed-table Pallas kernel (whole-contig table >> read length) ==
-    XLA kernel, via the Mosaic interpreter on CPU."""
-    import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (assign_alleles_device,
-                                            assign_alleles_pallas_windowed)
-
-    rng = np.random.default_rng(5)
-    M = 4000                      # whole-contig-scale table; W == 256 << M
-    vpos = np.sort(rng.choice(np.arange(1, 3_000_000, dtype=np.int32),
-                              size=M, replace=False)).astype(np.int32)
-    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
-    ni = np.full(M, 2, np.int8)
-    N, L = 700, 128
-    starts = np.sort(rng.integers(1, 2_900_000, size=N)).astype(np.int32)
-    refpos = starts[:, None] + np.arange(L, dtype=np.int32)[None, :]
-    refpos[rng.random((N, L)) < 0.05] = 0          # unaligned holes
-    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
-    quals = rng.integers(0, 40, size=(N, L)).astype(np.uint8)
-
-    jc, jq, jr = jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos)
-    jv, ji, jn = jnp.asarray(vpos), jnp.asarray(ind), jnp.asarray(ni)
-    want_v, want_a = assign_alleles_device(jc, jq, jr, jv, ji, jn, 10)
-    for algo in ("gather", "cmp"):
-        got_v, got_a = assign_alleles_pallas_windowed(
-            jc, jq, jr, jv, ji, jn, 10, interpret=True, algo=algo)
-        np.testing.assert_array_equal(np.asarray(got_v), np.asarray(want_v))
-        np.testing.assert_array_equal(np.asarray(got_a), np.asarray(want_a))
-    # sanity: the scenario produced real hits through the windowed path
-    assert int((np.asarray(want_v) >= 0).sum()) > 50
-
-
-def test_pallas_windowed_band_overflow_falls_back():
-    """A read block spanning more table entries than the window must take
-    the exact XLA fallback (same results by construction)."""
-    import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (assign_alleles_device,
-                                            assign_alleles_pallas_windowed)
-
-    rng = np.random.default_rng(6)
-    M = 2000
-    vpos = np.arange(1, M + 1, dtype=np.int32) * 7
-    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
-    ni = np.full(M, 2, np.int8)
-    N, L = 300, 128
-    # reads scattered across the whole span: one 256-row block covers far
-    # more than W table entries
-    starts = np.sort(rng.integers(1, M * 7 - L, size=N)).astype(np.int32)
-    refpos = starts[:, None] + np.arange(L, dtype=np.int32)[None, :]
-    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
-    quals = np.full((N, L), 30, np.uint8)
-    jc, jq, jr = jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos)
-    jv, ji, jn = jnp.asarray(vpos), jnp.asarray(ind), jnp.asarray(ni)
-    want_v, want_a = assign_alleles_device(jc, jq, jr, jv, ji, jn, 10)
-    got_v, got_a = assign_alleles_pallas_windowed(jc, jq, jr, jv, ji, jn, 10,
-                                                  interpret=True)
-    np.testing.assert_array_equal(np.asarray(got_v), np.asarray(want_v))
-    np.testing.assert_array_equal(np.asarray(got_a), np.asarray(want_a))
-
-
-def test_nibble_windowed_fused_matches_xla_fused(tmp_path):
-    """Fused windowed-Pallas nibble path (production TPU dispatch) produces
-    the identical packed-hit buffer as the XLA nibble kernel, via the
-    eager Mosaic interpreter."""
-    import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (_nibble_windowed_impl,
-                                            assign_compact_affine_nibble,
-                                            decode_packed_hits,
-                                            pack_affine_nibble,
-                                            plan_windows_affine)
-
-    chunk, vt = _fixture(tmp_path, seed=13, contig_len=30000,
-                         n_variants_per_contig=150, n_reads_per_contig=220)
-    nb = pack_affine_nibble(chunk, 10)
-    assert nb is not None
-    ncodes, ia, st, lo, hi = nb
-    stk = np.where(ia, st, 0).astype(np.int32)
-    lok = np.where(ia, lo, 0).astype(np.int32)
-    hik = np.where(ia, hi, 0).astype(np.int32)
-    N = len(chunk)
-    Np = 1
-    while Np < N:
-        Np *= 2
-    nc = np.pad(ncodes, ((0, Np - N), (0, 0)), constant_values=0xFF)
-    stp = np.pad(stk, (0, Np - N))
-    lop = np.pad(lok, (0, Np - N))
-    hip = np.pad(hik, (0, Np - N))
-    vpos = vt.pos.astype(np.int32)
-    ws = plan_windows_affine(stp, lop, hip, hip > lop, vpos, Np,
-                             min(256, Np))
-    assert ws is not None
-    cap = 1 << 13
-    pw = _nibble_windowed_impl(
-        jnp.asarray(nc), jnp.asarray(stp), jnp.asarray(lop),
-        jnp.asarray(hip), jnp.asarray(ws), jnp.asarray(vpos),
-        jnp.asarray(vt.ind_codes), jnp.asarray(vt.n_ind), cap,
-        interpret=True)
-    pn = assign_compact_affine_nibble(
-        jnp.asarray(nc), jnp.asarray(stp), jnp.asarray(lop),
-        jnp.asarray(hip), jnp.asarray(vpos), jnp.asarray(vt.ind_codes),
-        jnp.asarray(vt.n_ind), cap)
-    rw = decode_packed_hits(np.asarray(pw))
-    rn = decode_packed_hits(np.asarray(pn))
-    assert rw[4] == rn[4] and rw[4] > 30, (rw[4], rn[4])
-    for a, b in zip(rw[:4], rn[:4]):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_plane_windowed_fused_matches_xla_plane(tmp_path):
-    """Windowed refpos-plane path (spliced/deletion reads) == XLA plane
-    kernel packed buffers, via the eager interpreter."""
-    import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (_plane_windowed_impl,
-                                            assign_compact_plane,
-                                            decode_packed_hits, pack_reads,
-                                            plan_windows_plane)
-
-    chunk, vt = _fixture(tmp_path, seed=14, contig_len=30000,
-                         n_variants_per_contig=150, n_reads_per_contig=200,
-                         frac_spliced=0.5)
-    codes, quals, refpos = pack_reads(chunk)
-    N = codes.shape[0]
-    Np = 1
-    while Np < N:
-        Np *= 2
-    codes = np.pad(codes, ((0, Np - N), (0, 0)))
-    quals = np.pad(quals, ((0, Np - N), (0, 0)))
-    refpos = np.pad(refpos, ((0, Np - N), (0, 0)))
-    vpos = vt.pos.astype(np.int32)
-    ws = plan_windows_plane(refpos, vpos, min(256, Np))
-    assert ws is not None
-    cap = 1 << 13
-    pw = _plane_windowed_impl(
-        jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-        jnp.asarray(ws), jnp.asarray(vpos), jnp.asarray(vt.ind_codes),
-        jnp.asarray(vt.n_ind), 10, cap, interpret=True)
-    pn = assign_compact_plane(
-        jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-        jnp.asarray(vpos), jnp.asarray(vt.ind_codes),
-        jnp.asarray(vt.n_ind), 10, cap)
-    rw = decode_packed_hits(np.asarray(pw))
-    rn = decode_packed_hits(np.asarray(pn))
-    assert rw[4] == rn[4] and rw[4] > 30, (rw[4], rn[4])
-    for a, b in zip(rw[:4], rn[:4]):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_plane_windowed_non_multiple_rows():
-    """Row counts that are NOT a multiple of block_rows must still classify
-    every tail row (round-3 advisor finding: the grid used floor(NB/R), so
-    tail rows' outputs were never written and _pack_hits read garbage)."""
-    import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (_plane_windowed_impl,
-                                            assign_compact_plane,
-                                            decode_packed_hits,
-                                            plan_windows_plane)
-
-    rng = np.random.default_rng(15)
-    N, L, M = 300, 128, 128
-    assert N % 256 != 0, "must exercise a ragged tail"
-    starts = np.sort(rng.integers(1, 40000, size=N)).astype(np.int32)
-    refpos = starts[:, None] + np.arange(L, dtype=np.int32)[None, :]
-    codes = rng.integers(1, 16, size=(N, L)).astype(np.uint8)
-    quals = rng.integers(0, 40, size=(N, L)).astype(np.uint8)
-    vpos = np.sort(rng.choice(np.arange(1, 41000, dtype=np.int64), size=M,
-                              replace=False)).astype(np.int32)
-    ind = rng.integers(1, 9, size=(M, 2)).astype(np.uint8)
-    ni = np.full(M, 2, np.int8)
-    ws = plan_windows_plane(refpos, vpos, min(256, N))
-    assert ws is not None and ws.shape[0] == 2
-    cap = 1 << 13
-    pw = _plane_windowed_impl(
-        jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-        jnp.asarray(ws), jnp.asarray(vpos), jnp.asarray(ind),
-        jnp.asarray(ni), 10, cap, interpret=True)
-    pn = assign_compact_plane(
-        jnp.asarray(codes), jnp.asarray(quals), jnp.asarray(refpos),
-        jnp.asarray(vpos), jnp.asarray(ind), jnp.asarray(ni), 10, cap)
-    rw = decode_packed_hits(np.asarray(pw))
-    rn = decode_packed_hits(np.asarray(pn))
-    assert rw[4] == rn[4] and rw[4] > 30, (rw[4], rn[4])
-    # tail rows (index >= 256) must appear among the hits of BOTH paths
-    assert rn[0].max() >= 256 and rw[0].max() >= 256
-    for a, b in zip(rw[:4], rn[:4]):
-        np.testing.assert_array_equal(a, b)
-
-
 def test_delta_nibble_matches_plane(tmp_path):
     """int16-delta refpos device format (2.5 B/base vs the 6 B/base plane
     form) must classify D/split-M reads identically to the refpos-plane
-    kernel — XLA form and windowed-Pallas form (interpreter)."""
+    kernel."""
     import jax.numpy as jnp
-    from phaser_tpu.kernels.alleles import (_delta_windowed_impl,
-                                            assign_compact_delta_nibble,
+    from phaser_tpu.kernels.alleles import (assign_compact_delta_nibble,
                                             assign_compact_plane,
                                             decode_packed_hits,
-                                            pack_delta_nibble, pack_reads,
-                                            plan_windows_minmax)
+                                            pack_delta_nibble, pack_reads)
 
     chunk, vt = _fixture(tmp_path, seed=44, contig_len=30000,
                          n_variants_per_contig=150, n_reads_per_contig=400,
                          frac_spliced=0.35, frac_indel_reads=0.5)
     dn = pack_delta_nibble(chunk, 10)
     assert dn is not None
-    ncd, dlt, okm, dst, rmn, rmx = dn
+    ncd, dlt, okm, dst, _, _ = dn
     ok_idx = np.flatnonzero(okm)
     assert ok_idx.size > 10, "fixture must contain D/split-M reads"
     # delta-ok rows exclude spliced/insertion/affine reads
@@ -731,18 +525,4 @@ def test_delta_nibble_matches_plane(tmp_path):
     rd = decode_packed_hits(np.asarray(pd))
     assert rd[4] == rn[4] and rd[4] > 5, (rd[4], rn[4])
     for a, b in zip(rd[:4], rn[:4]):
-        np.testing.assert_array_equal(a, b)
-
-    ws = plan_windows_minmax(rmn[ok_idx], rmx[ok_idx],
-                             np.ones(ok_idx.size, bool), vpos,
-                             ok_idx.size, min(256, ok_idx.size))
-    assert ws is not None
-    pw = _delta_windowed_impl(
-        jnp.asarray(ncd[ok_idx]), jnp.asarray(dst[ok_idx]),
-        jnp.asarray(dlt[ok_idx]), jnp.asarray(ws), jnp.asarray(vpos),
-        jnp.asarray(vt.ind_codes), jnp.asarray(vt.n_ind), cap,
-        interpret=True)
-    rw = decode_packed_hits(np.asarray(pw))
-    assert rw[4] == rn[4]
-    for a, b in zip(rw[:4], rn[:4]):
         np.testing.assert_array_equal(a, b)
